@@ -1,9 +1,9 @@
-// jxt_native: host-side native core for the jxl_tpu framework.
+// jxt_native: host-side native core for the jxl_jax framework.
 //
 // Plays the role the reference delegates to native code (its Rust harness's
 // stream plumbing plus libjxl's C++ entropy coder): a reference
 // implementation of the exact same K-lane interleaved rANS scheme the JAX
-// codec runs on TPU (32-bit state, 16-bit renorm words, 12-bit
+// codec runs on device (32-bit state, 16-bit renorm words, 12-bit
 // frequencies), plus fast ragged stream (de)serialization and raw-bit
 // packing. Used via ctypes for:
 //   - conformance: C++ encode == device encode, C++ decode(device stream)
@@ -27,7 +27,7 @@ constexpr uint32_t kL = 1u << 16;
 extern "C" {
 
 // Interleaved rANS encode with CONSUMPTION-ORDER stream output (matching
-// jxl_tpu.entropy.rans): words appear in the order the decoder reads them —
+// jxl_jax.entropy.rans): words appear in the order the decoder reads them —
 // ascending decode step, then ascending lane among the lanes that
 // renormalize at that step.
 // tokens/ctx: [n]; freq/cum: [n_ctx * alphabet] (row-major).

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from jxl_tpu.strategy.acs import effective_multiplier, group_min_multiplier
-from jxl_tpu.transforms.adaptive import QF_LEVELS, QF_TABLE, qf_multiplier, quant_field
+from jxl_jax.strategy.acs import effective_multiplier, group_min_multiplier
+from jxl_jax.transforms.adaptive import QF_LEVELS, QF_TABLE, qf_multiplier, quant_field
 
 
 def test_qf_table_monotonic_and_centered():

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.metrics import calculate_psnr
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.metrics import calculate_psnr
 from tests.conftest import make_test_image
 
 

@@ -1,7 +1,7 @@
 """Histogram clustering (entropy/cluster.py + container v6).
 
 The reference gets clustered context models from libjxl's ANS layer (via
-cjxl, `docker_manager.rs:100-136`); these tests pin the TPU-native
+cjxl, `docker_manager.rs:100-136`); these tests pin the on-device
 equivalent: the on-device greedy merge, the v6 container's deduplicated
 tables, and the invariant that clustering changes ONLY the signaled tables
 (and through them the rANS stream) — never the decoded pixels.
@@ -11,7 +11,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from jxl_tpu.entropy.cluster import cluster_histograms
+from jxl_jax.entropy.cluster import cluster_histograms
 
 
 def test_identical_rows_merge():
@@ -38,10 +38,10 @@ def test_distinct_rows_stay_separate():
 
 
 def test_container_v6_round_trip_and_dedupe():
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.container import read_container
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.codec.encode import encode_image
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.container import read_container
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.codec.encode import encode_image
 
     rng = np.random.default_rng(7)
     base = rng.normal(130, 30, (48, 64, 1))

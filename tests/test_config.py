@@ -2,7 +2,7 @@
 
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig, Strategy
+from jxl_jax.codec.config import CodecConfig, Strategy
 
 
 def test_strategy_activation_matrix():
@@ -24,7 +24,7 @@ def test_strategy_activation_matrix():
 def test_effort_gates():
     """Effort ladder single source of truth: strategy/acs.MERGE_LADDER
     minimum efforts match the documented semantics (config.py)."""
-    from jxl_tpu.strategy.acs import MERGE_LADDER
+    from jxl_jax.strategy.acs import MERGE_LADDER
 
     min_effort = {n: e for n, _sid, e in MERGE_LADDER}
     assert min_effort[16] == 6
@@ -35,8 +35,8 @@ def test_effort_gates():
 @pytest.mark.slow
 def test_effort_ladder_distinct_bitstreams():
     """Every legacy-grid effort row is a distinct operating point
-    (VERDICT r2 item 6): e1/e3/e5/e7 produce different bitstreams."""
-    from jxl_tpu.codec.encode import encode_image
+   : e1/e3/e5/e7 produce different bitstreams."""
+    from jxl_jax.codec.encode import encode_image
     from tests.conftest import make_test_image
 
     img = make_test_image(64, 96, seed=11)
@@ -60,9 +60,9 @@ def test_config_hashable():
 def test_distance_floor_roundtrip():
     import numpy as np
 
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.codec.encode import encode_image
-    from jxl_tpu.metrics import calculate_psnr
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.codec.encode import encode_image
+    from jxl_jax.metrics import calculate_psnr
     from tests.conftest import make_test_image
 
     img = make_test_image(32, 32, seed=5)

@@ -1,6 +1,6 @@
 import os
 
-from jxl_tpu.bench.csv_schema import (
+from jxl_jax.bench.csv_schema import (
     COMPARISON_DIFF_HEADER,
     COMPARISON_RESULT_HEADER,
     IMAGE_FILE_DATA_HEADER,
@@ -11,7 +11,7 @@ from jxl_tpu.bench.csv_schema import (
     read_csv_rows,
     write_csv_header,
 )
-from jxl_tpu.core.image import ColorType, ImageFileData, ImageFormat
+from jxl_jax.core.image import ColorType, ImageFileData, ImageFormat
 
 
 def test_headers_match_reference_schema():

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from jxl_tpu.transforms.dct import (
+from jxl_jax.transforms.dct import (
     dct2d,
     dct_matrix,
     idct2d,

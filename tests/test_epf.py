@@ -3,12 +3,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.container import read_container_header
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.metrics import calculate_psnr
-from jxl_tpu.transforms.epf import epf_apply
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.container import read_container_header
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.metrics import calculate_psnr
+from jxl_jax.transforms.epf import epf_apply
 from tests.conftest import make_test_image
 
 
@@ -34,7 +34,7 @@ def test_epf_flag_roundtrip(monkeypatch):
     # pin the encoder's adaptive per-image EPF decision so the flag is
     # deterministic (the v8 encoder measures whether EPF helps and may
     # legitimately turn it off for this content)
-    monkeypatch.setenv("JXL_TPU_EPF_FORCE", "1")
+    monkeypatch.setenv("JXL_JAX_EPF_FORCE", "1")
     img = make_test_image(48, 48, seed=2)
     d_on = encode_image(img, CodecConfig(distance=3.0, effort=3, epf=True))
     d_off = encode_image(img, CodecConfig(distance=3.0, effort=3, epf=False))

@@ -1,4 +1,4 @@
-"""Decoder robustness against malformed containers (VERDICT r4 item 5).
+"""Decoder robustness against malformed containers.
 
 The reference's harness skip-on-failure contract assumes codec failures
 are CLEAN errors (`benchmark.rs:661-677`); libjxl's decoder is hardened.
@@ -13,10 +13,10 @@ import struct
 import numpy as np
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.container import MAGIC, read_container, read_container_header
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.container import MAGIC, read_container, read_container_header
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
 
 from tests.conftest import make_test_image
 
@@ -155,7 +155,7 @@ def test_forged_stream_counts(small_container):
     s = read_container(data)  # sanity: valid parses
     # find the n_stream_words field: it sits right after states+counts
     # sections; easiest robust approach — flip wcounts via re-serialize
-    from jxl_tpu.codec.container import write_container
+    from jxl_jax.codec.container import write_container
 
     s.wcounts = s.wcounts.copy()
     s.wcounts[0] += 7  # sum no longer matches payload length
@@ -168,7 +168,7 @@ def test_forged_stream_counts(small_container):
 
 def test_striped_wrapper_truncations():
     """JXTS wrapper parsing rejects malformed input cleanly too."""
-    from jxl_tpu.codec.tiled import read_striped, write_striped
+    from jxl_jax.codec.tiled import read_striped, write_striped
 
     wrapped = write_striped(16, 32, [b"sec0" * 10, b"sec1" * 20])
     r = np.random.default_rng(14)

@@ -1,10 +1,10 @@
 """Grid-batched encoding: vmapped distance axis must be byte-identical to
 per-point encodes (same compiled program, same streams)."""
 
-from jxl_tpu.codec.config import CodecConfig, Strategy
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image, encode_image_grid
-from jxl_tpu.metrics import calculate_psnr
+from jxl_jax.codec.config import CodecConfig, Strategy
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image, encode_image_grid
+from jxl_jax.metrics import calculate_psnr
 from tests.conftest import make_test_image
 
 

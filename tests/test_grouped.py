@@ -1,30 +1,27 @@
 """Grouped-stream rANS coder (container v5): property + differential tests.
 
 The XLA decoder (entropy/grouped.py:decode_grouped) is the bit-exact
-reference for the Pallas kernel (entropy/pallas_rans.py); on CPU these tests
-pin the encoder/XLA-decoder pair plus the kernel in interpreter mode on a
-small case (interpretation is slow, so the big cases cover XLA only — the
-TPU-side kernel equivalence is exercised by every on-device decode).
+reference for the GPU kernel (entropy/triton_rans.py); on CPU these tests
+pin the encoder/XLA-decoder pair plus the kernel in interpreter mode on
+small cases (interpretation is slow, so the big cases cover XLA only;
+tests/test_triton_kernel.py holds the kernel-vs-twin carry checks).
 """
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
-from jxl_tpu.entropy.grouped import (
+from jxl_jax.entropy.grouped import (
     GROUP,
+    MANT_SLACK,
+    WORD_SLACK,
     decode_grouped,
     kernel_rows,
     pack_mantissa_grouped,
     rans_encode_grouped,
 )
-from jxl_tpu.entropy.pallas_rans import (
-    MANT_SLACK,
-    WORD_SLACK,
-    decode_grouped_pallas,
-    rows_padded,
-)
-from jxl_tpu.entropy.rans import quantize_histograms
-from jxl_tpu.entropy.tokens import tokenize
+from jxl_jax.entropy.triton_rans import decode_grouped_triton
+from jxl_jax.entropy.rans import quantize_histograms
+from jxl_jax.entropy.tokens import tokenize
 
 
 def _roundtrip(vals, lanes, T, step_ctx, use_pallas=False):
@@ -62,15 +59,15 @@ def _roundtrip(vals, lanes, T, step_ctx, use_pallas=False):
         mg[g, : mcounts[g]] = mbytes[mb[g] : mb[g + 1]]
     rows = kernel_rows(jnp.asarray(step_ctx.astype(np.int32)), fj, cj)
     if use_pallas:
-        out = decode_grouped_pallas(
+        out = decode_grouped_triton(
             jnp.asarray(wg),
             jnp.asarray(mg),
-            jnp.asarray(states),
-            rows_padded(rows, T),
+            jnp.asarray(states).reshape(G, GROUP),
+            rows[:, None],
             T=T,
             lanes=lanes,
             interpret=True,
-        )
+        )[0][0]
     else:
         out = decode_grouped(
             jnp.asarray(wg), jnp.asarray(mg), jnp.asarray(states), rows, T=T, lanes=lanes
@@ -100,7 +97,6 @@ def test_grouped_roundtrip_wide_lanes():
     assert np.array_equal(out, vals)
 
 
-@pytest.mark.slow
 def test_pallas_kernel_interpret_matches():
     rng = np.random.default_rng(3)
     vals = rng.geometric(0.2, size=8 * 128).astype(np.uint32) - 1
@@ -134,7 +130,7 @@ def test_word_counts_cover_stream():
 def test_encode_chunked_matches_single():
     """The step-chunked encoder (ENC_CHUNK_T, used for gigapixel streams)
     must produce the identical words/counts/states as one unchunked scan."""
-    import jxl_tpu.entropy.grouped as gr
+    import jxl_jax.entropy.grouped as gr
 
     rng = np.random.default_rng(7)
     lanes, T = 128, 48
@@ -158,7 +154,7 @@ def test_encode_chunked_matches_single():
 
 
 def test_histogram_chunked_matches_single():
-    import jxl_tpu.codec.encode as enc
+    import jxl_jax.codec.encode as enc
 
     rng = np.random.default_rng(3)
     token = jnp.asarray(rng.integers(0, 52, size=5000).astype(np.int32))
@@ -173,13 +169,11 @@ def test_histogram_chunked_matches_single():
     np.testing.assert_array_equal(ref, got)
 
 
-@pytest.mark.slow
 def test_pallas_kernel_batched_matches():
-    """The batched kernel (B same-geometry streams in one run, filling the
-    state tile's sublane rows) must decode each stream bit-identically to
-    the XLA reference — the decode.grid path relies on it."""
-    from jxl_tpu.entropy.pallas_rans import decode_grouped_pallas_batched
-
+    """The batched kernel (B same-geometry streams in one launch, one
+    program per 128-lane group of every stream) must decode each stream
+    bit-identically to the XLA reference — the decode.grid path relies on
+    it."""
     lanes, T, B = 256, 6, 3
     step_ctx = np.repeat(np.arange(3), 2)
     streams = []
@@ -212,7 +206,7 @@ def test_pallas_kernel_batched_matches():
                 jnp.asarray(nbits), jnp.asarray(mant), lanes, T * lanes * 3
             ),
         )
-        rows = rows_padded(kernel_rows(jnp.asarray(step_ctx.astype(np.int32)), fj, cj), T)
+        rows = kernel_rows(jnp.asarray(step_ctx.astype(np.int32)), fj, cj)
         enc.append((words, wcounts, states, mbytes, mcounts, rows))
 
     capw = max(int(e[1].max()) for e in enc) + WORD_SLACK
@@ -225,12 +219,12 @@ def test_pallas_kernel_batched_matches():
         for g in range(G):
             wg[b * G + g, : wcounts[g]] = words[wb[g] : wb[g + 1]]
             mg[b * G + g, : mcounts[g]] = mbytes[mb[g] : mb[g + 1]]
-    states_b = jnp.asarray(np.stack([e[2] for e in enc]))
-    rows_b = jnp.stack([e[5] for e in enc], axis=1)  # [Tp, B, 128]
+    states_b = jnp.asarray(np.stack([e[2] for e in enc])).reshape(B * G, GROUP)
+    rows_b = jnp.stack([e[5] for e in enc], axis=1)  # [T, B, 128]
 
-    out = decode_grouped_pallas_batched(
+    out, _st, _ptr = decode_grouped_triton(
         jnp.asarray(wg), jnp.asarray(mg), states_b, rows_b,
-        T=T, lanes=lanes, B=B, interpret=True,
+        T=T, lanes=lanes, interpret=True,
     )
     out = np.asarray(out)
     for b, vals in enumerate(streams):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jxl_tpu.strategy.homogeneity import (
+from jxl_jax.strategy.homogeneity import (
     ACS_DCT,
     ACS_DCT4X4,
     ACS_DCT4X8,

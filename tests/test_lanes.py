@@ -1,6 +1,6 @@
-"""Auto lane selection by stream size (VERDICT r4 item 7)."""
+"""Auto lane selection by stream size."""
 
-from jxl_tpu.codec.encode import pick_lanes
+from jxl_jax.codec.encode import pick_lanes
 
 
 def test_small_images_keep_ratio_first_default():

@@ -1,7 +1,7 @@
 """Lossless (d=0) modular mode: exact integer round trips.
 
 The reference's legacy sweep grid includes distance 0.0 = cjxl lossless
-(`old_test_jxl.py:16-27`); these tests pin the TPU-native equivalent
+(`old_test_jxl.py:16-27`); these tests pin the on-device equivalent
 (codec/lossless.py) to BIT-EXACT reconstruction.
 """
 
@@ -9,11 +9,11 @@ import numpy as np
 import jax.numpy as jnp
 
 from bench import synth_kodak
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.codec.container import read_container
-from jxl_tpu.codec.lossless import (
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.codec.container import read_container
+from jxl_jax.codec.lossless import (
     grad_reconstruct,
     grad_residual,
     ycocg_forward,

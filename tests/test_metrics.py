@@ -1,6 +1,6 @@
 import numpy as np
 
-from jxl_tpu.metrics import (
+from jxl_jax.metrics import (
     calculate_ms_ssim,
     calculate_mse,
     calculate_psnr,
@@ -50,7 +50,7 @@ def test_metrics_order_with_noise():
 
 
 def test_perceptual_metrics_order():
-    from jxl_tpu.metrics import calculate_butteraugli, calculate_ssimulacra2
+    from jxl_jax.metrics import calculate_butteraugli, calculate_ssimulacra2
 
     img = make_test_image(96, 96).astype(np.int32)
     rng = np.random.default_rng(0)

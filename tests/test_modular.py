@@ -1,12 +1,12 @@
-"""Modular-lossy mode (VERDICT r4 item 1): quantized-plane modular coding
+"""Modular-lossy mode: quantized-plane modular coding
 for sharp synthetic content + the per-image VarDCT-vs-modular decision."""
 
 import numpy as np
 import pytest
 
-from jxl_tpu.codec import decode, encode
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.container import read_container_header
+from jxl_jax.codec import decode, encode
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.container import read_container_header
 
 from tests.conftest import make_test_image
 
@@ -26,7 +26,7 @@ def test_modular_lossy_error_bound():
     """Reconstruction error is bounded by the quantizer geometry: each
     YCoCg plane is off by at most step/2 (+1 for the int lifting), so the
     worst RGB error is a small step-derived constant — no ringing."""
-    from jxl_tpu.codec.lossless import modular_steps
+    from jxl_jax.codec.lossless import modular_steps
 
     img = synth_graphics()
     for d in (0.5, 1.0, 3.0):
@@ -42,7 +42,7 @@ def test_modular_lossy_error_bound():
 
 
 def test_modular_steps_identity_at_zero():
-    from jxl_tpu.codec.lossless import modular_steps
+    from jxl_jax.codec.lossless import modular_steps
 
     assert np.asarray(modular_steps(0.0)).tolist() == [1, 1, 1]
     assert np.asarray(modular_steps(0.05)).tolist() == [1, 1, 1]
@@ -91,7 +91,7 @@ def test_grid_decision_per_point():
 
 
 def test_forced_off_env(monkeypatch):
-    monkeypatch.setenv("JXL_TPU_MODULAR", "0")
+    monkeypatch.setenv("JXL_JAX_MODULAR", "0")
     img = synth_graphics(seed=4)
     assert not encode._modular_candidate(img)
     data = encode.encode_image(img, CodecConfig(distance=1.0))

@@ -1,10 +1,10 @@
-"""REAL multi-process `jax.distributed` exercise (VERDICT r2 item 5).
+"""REAL multi-process `jax.distributed` exercise.
 
 Spawns two OS processes that form a 2-process / 4-device CPU process group
 via `jax.distributed.initialize` (coordinator on 127.0.0.1), build the
 global ("data", "space") mesh, run the full sharded encode step as ONE
 SPMD program spanning both processes, and verify byte-identical containers
-per process — the CI-runnable stand-in for a multi-host TPU slice
+per process — the CI-runnable stand-in for a multi-host cluster
 (BASELINE config 5; SURVEY §5.8). The reference has no analog: its
 "distributed backend" is docker-exec + CSV rendezvous
 (docker_manager.rs:227-255).

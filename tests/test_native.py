@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jxl_tpu.entropy.rans import (
+from jxl_jax.entropy.rans import (
     deserialize_streams,
     quantize_histograms,
     rans_decode,
@@ -15,7 +15,7 @@ from jxl_tpu.entropy.rans import (
     serialize_streams,
 )
 
-native = pytest.importorskip("jxl_tpu.native")
+native = pytest.importorskip("jxl_jax.native")
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -72,7 +72,7 @@ def test_jax_decodes_native_stream():
 
 
 def test_native_bitpack_matches_jax():
-    from jxl_tpu.entropy.tokens import bit_capacity_words, pack_bits, tokenize, unpack_bits
+    from jxl_jax.entropy.tokens import bit_capacity_words, pack_bits, tokenize, unpack_bits
 
     rng = np.random.default_rng(3)
     vals = rng.integers(0, 1 << 18, 5000).astype(np.uint32)

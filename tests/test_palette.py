@@ -1,10 +1,10 @@
-"""Lossless palette/index mode (VERDICT r4 item 4)."""
+"""Lossless palette/index mode."""
 
 import numpy as np
 
-from jxl_tpu.codec import decode, encode
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.container import read_container
+from jxl_jax.codec import decode, encode
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.container import read_container
 
 from tests.conftest import make_test_image
 

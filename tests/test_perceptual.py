@@ -1,14 +1,14 @@
 """Perceptual metric properties: anchors, orientation, monotonicity.
 
 The reference treats Butteraugli/SSIMULACRA2 as black boxes (parses tool
-stdout, `metrics.rs:96-144`); these tests pin the TPU-native
+stdout, `metrics.rs:96-144`); these tests pin the on-device
 implementations to the properties comparisons rely on.
 """
 
 import numpy as np
 
 from bench import synth_kodak
-from jxl_tpu.metrics.perceptual import calculate_butteraugli, calculate_ssimulacra2
+from jxl_jax.metrics.perceptual import calculate_butteraugli, calculate_ssimulacra2
 
 
 def _blur(img, s):
@@ -56,7 +56,7 @@ def test_monotone_under_blur():
 def test_ssimulacra2_feature_shape():
     import jax.numpy as jnp
 
-    from jxl_tpu.metrics.perceptual import _S2_SCALES, _ssimulacra2_features
+    from jxl_jax.metrics.perceptual import _S2_SCALES, _ssimulacra2_features
 
     img = synth_kodak(96, 128)
     f = np.asarray(_ssimulacra2_features(jnp.asarray(img), jnp.asarray(img)))

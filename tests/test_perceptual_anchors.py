@@ -1,4 +1,4 @@
-"""Perceptual metrics pinned to EXTERNAL anchors (VERDICT r1 item 5).
+"""Perceptual metrics pinned to EXTERNAL anchors.
 
 The reference consumes the real `butteraugli_main` / `ssimulacra2` tools
 (`docker_manager.rs:148-175`, parsed at `metrics.rs:96-144`); this repo
@@ -21,10 +21,10 @@ import numpy as np
 import pytest
 
 from bench import synth_kodak
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.metrics.perceptual import calculate_butteraugli, calculate_ssimulacra2
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.metrics.perceptual import calculate_butteraugli, calculate_ssimulacra2
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +84,7 @@ def test_butteraugli_tracks_codec_distance(img):
     """cjxl-unit convention: a --distance D encode scores a max-distance
     in the same decade as D, monotone throughout. The coarse-scale bands
     (LF/LF2) plus the intensity-response nonlinearity keep the score
-    growing at high distance (VERDICT r2 item 4): d=12 is pinned inside
+    growing at high distance: d=12 is pinned inside
     [6, 24] — within ~2x of its nominal unit."""
     prev = 0.0
     for d, lo, hi in ((0.5, 0.1, 3.0), (1.0, 0.5, 4.0), (4.0, 1.5, 9.0), (12.0, 6.0, 24.0)):

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jxl_tpu.entropy.rans import (
+from jxl_jax.entropy.rans import (
     RANS_M,
     deserialize_streams,
     quantize_histograms,
@@ -10,7 +10,7 @@ from jxl_tpu.entropy.rans import (
     rans_encode,
     serialize_streams,
 )
-from jxl_tpu.entropy.tokens import (
+from jxl_jax.entropy.tokens import (
     ALPHABET,
     bit_capacity_words,
     detokenize,
@@ -130,7 +130,7 @@ def test_zigzag_map_roundtrip():
 
 
 def test_pack_unpack_bytes():
-    from jxl_tpu.entropy.tokens import byte_capacity, pack_bytes, unpack_bytes
+    from jxl_jax.entropy.tokens import byte_capacity, pack_bytes, unpack_bytes
 
     rng = np.random.default_rng(21)
     n = 5000

@@ -9,11 +9,11 @@ expected PSNR range per distance.
 import numpy as np
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig, Strategy
-from jxl_tpu.codec.container import read_container, read_container_header
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.metrics import calculate_psnr
+from jxl_jax.codec.config import CodecConfig, Strategy
+from jxl_jax.codec.container import read_container, read_container_header
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.metrics import calculate_psnr
 from tests.conftest import make_test_image
 
 

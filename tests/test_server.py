@@ -1,4 +1,4 @@
-"""Persistent codec server round trip (VERDICT r4 item 2): a real
+"""Persistent codec server round trip: a real
 subprocess server on a unix socket, driven through the forwarding client
 path the CLI uses."""
 
@@ -18,10 +18,10 @@ from tests.conftest import make_test_image
 @pytest.fixture(scope="module")
 def server(tmp_path_factory):
     sock = str(tmp_path_factory.mktemp("srv") / "jxl.sock")
-    env = dict(os.environ, JXL_TPU_PLATFORM="cpu", JXL_TPU_SOCKET=sock)
-    env.pop("JXL_TPU_NO_SERVER", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JXL_JAX_SOCKET=sock)
+    env.pop("JXL_JAX_NO_SERVER", None)
     proc = subprocess.Popen(
-        [sys.executable, "-m", "jxl_tpu", "serve"],
+        [sys.executable, "-m", "jxl_jax", "serve"],
         env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.DEVNULL,
@@ -47,15 +47,15 @@ def server(tmp_path_factory):
 
 
 def test_server_ping(server):
-    from jxl_tpu.cli.server import try_forward
+    from jxl_jax.cli.server import try_forward
 
     rep = try_forward({"cmd": "ping"}, socket_path=server)
     assert rep == {"ok": True, "msg": "pong"}
 
 
 def test_server_encode_decode_roundtrip(server, tmp_path):
-    from jxl_tpu.cli.server import try_forward
-    from jxl_tpu.core.io import write_image
+    from jxl_jax.cli.server import try_forward
+    from jxl_jax.core.io import write_image
 
     img = make_test_image(48, 64, seed=21)
     src = str(tmp_path / "in.png")
@@ -75,15 +75,15 @@ def test_server_encode_decode_roundtrip(server, tmp_path):
         {"cmd": "decode", "input": jxt, "output": back}, socket_path=server
     )
     assert rep and rep["ok"], rep
-    from PIL import Image
+    from jxl_jax.core.io import read_image
 
-    out = np.asarray(Image.open(back).convert("RGB"))
+    out = read_image(back)
     mse = np.mean((out.astype(np.float64) - img.astype(np.float64)) ** 2)
     assert 10 * np.log10(255.0**2 / mse) > 28.0
 
 
 def test_server_error_is_clean(server):
-    from jxl_tpu.cli.server import try_forward
+    from jxl_jax.cli.server import try_forward
 
     rep = try_forward(
         {"cmd": "decode", "input": "/nonexistent.jxt", "output": "/tmp/x.png"},
@@ -94,20 +94,20 @@ def test_server_error_is_clean(server):
 
 
 def test_no_server_returns_none(tmp_path):
-    from jxl_tpu.cli.server import try_forward
+    from jxl_jax.cli.server import try_forward
 
     assert try_forward({"cmd": "ping"}, socket_path=str(tmp_path / "no.sock")) is None
-    os.environ["JXL_TPU_NO_SERVER"] = "1"
+    os.environ["JXL_JAX_NO_SERVER"] = "1"
     try:
         assert try_forward({"cmd": "ping"}, socket_path="/tmp") is None
     finally:
-        del os.environ["JXL_TPU_NO_SERVER"]
+        del os.environ["JXL_JAX_NO_SERVER"]
 
 
 def test_server_survives_client_disconnect(server):
     """A client that connects and vanishes (or stays silent) must not
     kill or wedge the accept loop."""
-    from jxl_tpu.cli.server import try_forward
+    from jxl_jax.cli.server import try_forward
 
     # connect and drop immediately (write nothing)
     c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -122,13 +122,29 @@ def test_server_survives_client_disconnect(server):
     assert rep == {"ok": True, "msg": "pong"}
 
 
-def test_codec_env_knobs_disable_forwarding(server, monkeypatch):
-    """A client steering the codec via JXL_TPU_* env must run locally (the
-    server's environment would otherwise govern the encode)."""
-    from jxl_tpu.cli.server import try_forward
+def test_codec_env_knobs_disable_forwarding(server, monkeypatch, tmp_path):
+    """A client steering the codec via JXL_JAX_* env must not be forwarded
+    (the server's environment would otherwise govern the encode); beside a
+    live server it must not run locally either (a second process on the
+    device), so it stops with ServerBusy. With no server it runs locally."""
+    from jxl_jax.cli.server import ServerBusy, try_forward
 
-    monkeypatch.setenv("JXL_TPU_MODULAR", "0")
-    assert try_forward({"cmd": "ping"}, socket_path=server) is None
-    monkeypatch.delenv("JXL_TPU_MODULAR")
-    monkeypatch.setenv("JXL_TPU_PLATFORM", "cpu")  # non-codec knob: forwards
+    monkeypatch.setenv("JXL_JAX_MODULAR", "0")
+    with pytest.raises(ServerBusy, match="JXL_JAX_MODULAR"):
+        try_forward({"cmd": "ping"}, socket_path=server)
+    assert try_forward({"cmd": "ping"}, socket_path=str(tmp_path / "no.sock")) is None
+    monkeypatch.delenv("JXL_JAX_MODULAR")
+    monkeypatch.setenv("JXL_JAX_NO_CACHE", "1")  # non-codec knob: forwards
     assert try_forward({"cmd": "ping"}, socket_path=server)["ok"]
+
+
+def test_cli_refuses_local_run_beside_live_server(server, monkeypatch, tmp_path, capsys):
+    """`python -m jxl_jax encode` with JXL_JAX_NO_SERVER=1 beside a live
+    server exits non-zero with the reason, before touching the input."""
+    from jxl_jax.cli.main import main
+
+    monkeypatch.setenv("JXL_JAX_NO_SERVER", "1")
+    monkeypatch.setattr("jxl_jax.cli.server.DEFAULT_SOCKET", server)
+    rc = main(["encode", str(tmp_path / "missing.png"), str(tmp_path / "o.jxt")])
+    assert rc == 2
+    assert "holds the device" in capsys.readouterr().err

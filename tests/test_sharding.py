@@ -11,7 +11,7 @@ def test_eight_virtual_devices():
 
 
 def test_mesh_shapes():
-    from jxl_tpu.distributed.mesh import make_mesh
+    from jxl_jax.distributed.mesh import make_mesh
 
     m = make_mesh(8)
     assert m.devices.shape == (8, 1)
@@ -34,11 +34,11 @@ def test_sharded_encode_bit_exact_containers():
     has: each worker produces a real artifact, `benchmark.rs:654-684`)."""
     from dataclasses import replace
 
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.codec.encode import encode_image
-    from jxl_tpu.distributed.mesh import make_mesh
-    from jxl_tpu.distributed.sharded import encode_batch_sharded
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.codec.encode import encode_image
+    from jxl_jax.distributed.mesh import make_mesh
+    from jxl_jax.distributed.sharded import encode_batch_sharded
 
     h = w = 64
     rng = np.random.default_rng(0)
@@ -63,7 +63,7 @@ def test_sharded_encode_bit_exact_containers():
 
 def test_init_multihost_single_process_noop():
     """init_multihost must be safe to call unconditionally on one host."""
-    from jxl_tpu.distributed.mesh import init_multihost
+    from jxl_jax.distributed.mesh import init_multihost
 
     init_multihost()  # no coordinator: logs + continues standalone
     assert len(jax.devices()) == 8
@@ -75,9 +75,9 @@ def test_sharded_epf_matches_unsharded():
     bit-for-bit (boundary handling included)."""
     import jax.numpy as jnp
 
-    from jxl_tpu.distributed.mesh import make_mesh
-    from jxl_tpu.distributed.sharded import sharded_epf
-    from jxl_tpu.transforms.epf import epf_apply
+    from jxl_jax.distributed.mesh import make_mesh
+    from jxl_jax.distributed.sharded import sharded_epf
+    from jxl_jax.transforms.epf import epf_apply
 
     rng = np.random.default_rng(7)
     h, w = 32, 8 * 8 * 4  # width splits over 4 space shards

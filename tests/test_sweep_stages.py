@@ -12,7 +12,7 @@ from tests.conftest import make_test_image
 
 @pytest.fixture(scope="module")
 def tiny_set(tmp_path_factory):
-    from jxl_tpu.core.io import write_image
+    from jxl_jax.core.io import write_image
 
     root = tmp_path_factory.mktemp("imgs")
     ts = root / "mini"
@@ -23,12 +23,12 @@ def tiny_set(tmp_path_factory):
 
 
 def test_legacy_stages_write_tables_and_diffs(tiny_set, tmp_path):
-    from jxl_tpu.bench.sweep import (
+    from jxl_jax.bench.sweep import (
         DECOMPRESSION_HEADER,
         SweepConfig,
         SweepRunner,
     )
-    from jxl_tpu.codec.config import Strategy
+    from jxl_jax.codec.config import Strategy
 
     cfg = SweepConfig(
         benchmark_dir=str(tmp_path / "bench"),
@@ -59,7 +59,7 @@ def test_legacy_stages_write_tables_and_diffs(tiny_set, tmp_path):
     assert len(diffs) == 4 and all(d.endswith("-diff.png") for d in diffs)
 
     # higher distance decodes differ more: diff image has more energy
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.core.io import read_image
 
     d1 = read_image(os.path.join(base, "diffs", "im0-1.0-7-diff.png"))
     d3 = read_image(os.path.join(base, "diffs", "im0-3.0-7-diff.png"))
@@ -67,8 +67,8 @@ def test_legacy_stages_write_tables_and_diffs(tiny_set, tmp_path):
 
 
 def test_sweep_resume_no_duplicate_rows(tiny_set, tmp_path):
-    from jxl_tpu.bench.sweep import SweepConfig, SweepRunner
-    from jxl_tpu.codec.config import Strategy
+    from jxl_jax.bench.sweep import SweepConfig, SweepRunner
+    from jxl_jax.codec.config import Strategy
 
     cfg = SweepConfig(
         benchmark_dir=str(tmp_path / "bench2"),

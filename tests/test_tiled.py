@@ -2,17 +2,17 @@
 EPF stitch, sharded-vs-sequential byte equality, wrapper parsing.
 
 Reference capability: libjxl codes images as independent 256x256 group
-sections inside one codestream (built at Dockerfile:40-43); the TPU path
+sections inside one codestream (built at Dockerfile:40-43); this codec
 stripes the image into independent full-height sections and stitches the
 EPF at decode (BASELINE.json config 5's section structure)."""
 
 import numpy as np
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.decode import decode_bytes
-from jxl_tpu.codec.encode import encode_image
-from jxl_tpu.codec.tiled import (
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.decode import decode_bytes
+from jxl_jax.codec.encode import encode_image
+from jxl_jax.codec.tiled import (
     decode_striped_bytes,
     encode_image_striped,
     encode_image_striped_sharded,
@@ -102,7 +102,7 @@ def test_striped_sharded_matches_sequential():
     striped encode (stripes are the DP batch of one SPMD program)."""
     import jax
 
-    from jxl_tpu.distributed.mesh import make_mesh
+    from jxl_jax.distributed.mesh import make_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device mesh")
@@ -122,8 +122,8 @@ def test_mixed_mode_stripes_roundtrip():
     beats the whole-image decision on bytes."""
     import numpy as np
 
-    from jxl_tpu.codec.container import read_container_header
-    from jxl_tpu.codec.tiled import read_striped
+    from jxl_jax.codec.container import read_container_header
+    from jxl_jax.codec.tiled import read_striped
 
     rng = np.random.default_rng(42)
     ui = np.full((64, 128, 3), 240, np.uint8)

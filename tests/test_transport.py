@@ -7,14 +7,14 @@ throughput depends on — byte-level bugs here corrupt streams silently.
 import numpy as np
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.decode import (
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.decode import (
     _pack_stream_np,
     _pow2_bucket,
     _unpack_sections,
     decode_bytes,
 )
-from jxl_tpu.codec.encode import (
+from jxl_jax.codec.encode import (
     _NEED_HISTORY,
     _dist_key,
     _need_u32,
@@ -41,9 +41,8 @@ def _img(seed=0, h=96, w=128, flat=False):
 def test_dense_pack_unpack_roundtrip():
     """_unpack_sections must exactly invert _pack_stream_np's dense
     word/mantissa packing (bitcast byte order is load-bearing)."""
-    from jxl_tpu.codec.container import read_container
-    from jxl_tpu.entropy.grouped import GROUP
-    from jxl_tpu.entropy.pallas_rans import MANT_SLACK, WORD_SLACK
+    from jxl_jax.codec.container import read_container
+    from jxl_jax.entropy.grouped import GROUP, MANT_SLACK, WORD_SLACK
 
     img = _img(3)
     data = encode_image(img, CodecConfig(distance=1.0, effort=5))
@@ -107,7 +106,7 @@ def test_window_sizing_properties():
 def test_batched_images_byte_identical_to_single():
     """encode_images_batched_async (one dispatch for N same-geometry
     images) must reproduce per-image encode_image containers exactly."""
-    from jxl_tpu.codec.encode import encode_images_batched_async
+    from jxl_jax.codec.encode import encode_images_batched_async
 
     cfg = CodecConfig(distance=1.2, effort=5)
     imgs = [_img(s) for s in (1, 2, 3)]

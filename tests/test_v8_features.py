@@ -4,10 +4,10 @@ adaptive-EPF traced decode bit, and the lossless activity classes."""
 import numpy as np
 import pytest
 
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.container import read_container, read_container_header
-from jxl_tpu.codec.decode import decode_bytes, decode_bytes_grid_stacked
-from jxl_tpu.codec.encode import encode_image, encode_image_grid
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.container import read_container, read_container_header
+from jxl_jax.codec.decode import decode_bytes, decode_bytes_grid_stacked
+from jxl_jax.codec.encode import encode_image, encode_image_grid
 
 
 def _mixed_image(h=128, w=192, seed=5):

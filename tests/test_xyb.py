@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from jxl_tpu.core.xyb import (
+from jxl_jax.core.xyb import (
     linear_rgb_to_xyb,
     linear_to_srgb,
     srgb_to_linear,

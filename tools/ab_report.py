@@ -61,8 +61,8 @@ def main():
         "Full reference grid (distance x effort = 50 points/image,",
         "`benchmark.rs:637-638`) over the 12-image committed corpus",
         "(`test_images/synth/`, six content families incl. the round-4",
-        "text/diagonal/sky additions), run on one TPU",
-        "chip for BASELINE vs each thesis variant. Diffs are",
+        "text/diagonal/sky additions), for BASELINE vs each thesis",
+        "variant. Diffs are",
         "variant - baseline, aggregated as the reference's `summary.csv`",
         "does (mean over all rows). Positive 'Diff Compressed File Size'",
         "= variant emits bigger files; positive 'Diff PSNR' = variant",

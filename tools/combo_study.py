@@ -5,7 +5,7 @@ combinations of position granularity x nnz-bucket count, with signaling.
   p63  : channel x 63 positions
   p63q2: channel x 63 positions x {empty, busy} block
   p63q4: channel x 63 positions x 4 nnz buckets (edges 1, 3, 8)
-  b6q4 : channel x 6 bands x 4 buckets          (VERDICT-shaped)
+  b6q4 : channel x 6 bands x 4 buckets
 
 Net numbers subtract the bucket-map signaling (causal residual entropy).
 Run: python tools/combo_study.py
@@ -29,9 +29,9 @@ def entropy_bits(counts):
 def study(name, rgb, distance, effort=7):
     import jax.numpy as jnp
 
-    from jxl_tpu.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
-    from jxl_tpu.codec.layout import ac_band_table, token_layout
-    from jxl_tpu.entropy.tokens import detokenize, zigzag_unmap
+    from jxl_jax.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
+    from jxl_jax.codec.layout import ac_band_table, token_layout
+    from jxl_jax.entropy.tokens import detokenize, zigzag_unmap
 
     h, w = rgb.shape[:2]
     lay = token_layout(h, w)
@@ -103,7 +103,7 @@ def study(name, rgb, distance, effort=7):
 
 def main():
     from bench import synth_kodak
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.core.io import read_image
 
     images = {"bench": synth_kodak()}
     for f in ("synth00.png", "synth02.png", "synth04.png", "synth06.png"):

@@ -30,9 +30,9 @@ def entropy_bits(counts: np.ndarray) -> float:
 def study(name, rgb, distance, effort=7):
     import jax.numpy as jnp
 
-    from jxl_tpu.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
-    from jxl_tpu.codec.layout import ac_band_table, token_layout
-    from jxl_tpu.entropy.tokens import detokenize
+    from jxl_jax.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
+    from jxl_jax.codec.layout import ac_band_table, token_layout
+    from jxl_jax.entropy.tokens import detokenize
 
     h, w = rgb.shape[:2]
     lay = token_layout(h, w)
@@ -124,7 +124,7 @@ def study(name, rgb, distance, effort=7):
 
 def main():
     from bench import synth_kodak
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.core.io import read_image
 
     images = {"bench": synth_kodak()}
     for f in ("synth00.png", "synth02.png", "synth04.png"):

@@ -1,4 +1,4 @@
-"""EPF on/off A/B (VERDICT r2 item 8): does the decode-side edge-preserving
+"""EPF on/off A/B: does the decode-side edge-preserving
 filter pay for itself?
 
 EPF is decode-side, so the A/B uses the SAME bitstream per point: encode
@@ -8,7 +8,7 @@ the container's flag bit cleared. Reports PSNR/SSIM deltas at d in
 table to docs/epf_ab.md.
 
 Usage: python tools/epf_ab.py [--out docs/epf_ab.md]   (CPU ok: set
-JXL_TPU_PLATFORM=cpu; the numbers are platform-independent)
+JAX_PLATFORMS=cpu; the numbers are platform-independent)
 """
 
 import argparse
@@ -40,23 +40,23 @@ def main():
 
     from bench import synth_kodak
     from tools.make_test_images import synth_photo
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.codec.encode import encode_image
-    from jxl_tpu.metrics.quality import calculate_psnr, calculate_ssim
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.codec.encode import encode_image
+    from jxl_jax.metrics.quality import calculate_psnr, calculate_ssim
 
     # EPF is a VarDCT-path filter: pin the mode decision off so the
     # text/graphics corpus rows measure the VarDCT stream (the shipped
     # encoder would pick modular there, which never filters)
-    os.environ["JXL_TPU_MODULAR"] = "0"
-    from jxl_tpu.core.io import read_image
+    os.environ["JXL_JAX_MODULAR"] = "0"
+    from jxl_jax.core.io import read_image
 
     images = {
         "bench": synth_kodak(),
         "synth_a": synth_photo(512, 768, seed=100),
         "synth_b": synth_photo(512, 768, seed=101),
     }
-    # full committed corpus (VERDICT r4 item 6: 3 images is not evidence)
+    # full committed corpus (3 images is not evidence)
     corpus_dir = "test_images/synth"
     if os.path.isdir(corpus_dir):
         for f in sorted(os.listdir(corpus_dir)):

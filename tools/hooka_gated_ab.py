@@ -1,4 +1,4 @@
-"""RD-gated Hook A corpus A/B (VERDICT r4 item 9).
+"""RD-gated Hook A corpus A/B.
 
 Round 4's 600-point thesis A/B found the homogeneity override pays in
 exactly one regime — near-ties of the dense search's rate proxy (text:
@@ -8,7 +8,7 @@ strategy/acs.py) against BASELINE and the thesis's unconditional
 HOMOGENEITY_PARTITIONING on the full committed corpus.
 
 Writes docs/hooka_gated_r05.md. Run: python tools/hooka_gated_ab.py
-(TPU preferred; JXL_TPU_PLATFORM=cpu works).
+(GPU preferred; JAX_PLATFORMS=cpu works).
 """
 
 import json
@@ -30,11 +30,11 @@ def psnr(a, b):
 
 
 def main():
-    os.environ["JXL_TPU_MODULAR"] = "0"  # isolate the VarDCT path
-    from jxl_tpu.codec.config import CodecConfig, Strategy
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.codec.encode import encode_image_grid
-    from jxl_tpu.core.io import read_image
+    os.environ["JXL_JAX_MODULAR"] = "0"  # isolate the VarDCT path
+    from jxl_jax.codec.config import CodecConfig, Strategy
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.codec.encode import encode_image_grid
+    from jxl_jax.core.io import read_image
 
     arms = ("BASELINE", "HOMOGENEITY_PARTITIONING", "HOMOGENEITY_RD_GATED")
     rows = []
@@ -56,11 +56,11 @@ def main():
             print(json.dumps(r), flush=True)
 
     lines = [
-        "# RD-gated Hook A — corpus A/B (round 5, VERDICT r4 item 9)",
+        "# RD-gated Hook A — corpus A/B (round 5)",
         "",
         "`HOMOGENEITY_RD_GATED` applies the thesis's HomogeneityPartition",
         "override ONLY where the partitioned candidate is within",
-        "JXL_TPU_HOOKA_EPS (default 2%) of the dense argmin winner's proxy",
+        "JXL_JAX_HOOKA_EPS (default 2%) of the dense argmin winner's proxy",
         "rate — the near-tie regime the round-4 600-point study identified",
         "as the one place the heuristic pays. VarDCT path isolated",
         "(modular decision pinned off); deltas vs BASELINE at equal d.",

@@ -189,8 +189,7 @@ def synth_sky(h, w, seed):
 # content family per corpus index: photographic texture x2, sharp
 # graphics, smooth portrait (indices 0-7 — the committed round-3 corpus,
 # unchanged), then the round-4 families: text/screenshot, hard diagonal
-# edges, smooth sky gradient, and a second text sample (VERDICT r3
-# item 5 / weak 6).
+# edges, smooth sky gradient, and a second text sample.
 GENERATORS = (
     synth_photo,
     synth_photo,
@@ -214,7 +213,7 @@ def main():
     ap.add_argument("--size", default="512x768", help="HxW")
     args = ap.parse_args()
 
-    from jxl_tpu.core.io import write_image
+    from jxl_jax.core.io import write_image
 
     h, w = (int(s) for s in args.size.split("x"))
     out_dir = os.path.join(args.out, "synth")

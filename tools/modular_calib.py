@@ -1,4 +1,4 @@
-"""Modular-lossy calibration study (VERDICT r4 item 1).
+"""Modular-lossy calibration study.
 
 Collects, for every corpus image and a distance grid, BOTH coding paths'
 measured (bytes, PSNR):
@@ -34,13 +34,13 @@ def psnr(a, b):
 
 
 def main():
-    from jxl_tpu.codec import encode
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.decode import decode_bytes
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.codec import encode
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.decode import decode_bytes
+    from jxl_jax.core.io import read_image
 
     out_path = sys.argv[1] if len(sys.argv) > 1 else "docs/modular_calib.json"
-    os.environ["JXL_TPU_MODULAR"] = "0"  # VarDCT arm never runs the decision
+    os.environ["JXL_JAX_MODULAR"] = "0"  # VarDCT arm never runs the decision
 
     rows = []
     for name in sorted(FAMILY):

@@ -1,5 +1,5 @@
-"""Estimate the rate win of nnz-bucket-conditioned AC contexts (VERDICT r3
-item 1) BEFORE building it: tokenizes images with the current encoder,
+"""Estimate the rate win of nnz-bucket-conditioned AC contexts
+BEFORE building it: tokenizes images with the current encoder,
 reconstructs per-(channel, block) nonzero counts, and compares
 
   (a) current position-only contexts: H(token | channel, band)
@@ -10,7 +10,7 @@ entropy) for several candidate bucket edge sets. All entropies are computed
 from exact token histograms (ideal-code bits), so the numbers bound what
 the rANS layer can realize (quantization to 12-bit tables costs ~0.1%).
 
-Run: python tools/nnz_study.py  (TPU or CPU; stats are identical)
+Run: python tools/nnz_study.py  (GPU or CPU; stats are identical)
 """
 
 import json
@@ -34,9 +34,9 @@ def entropy_bits(counts: np.ndarray) -> float:
 def study_image(name, rgb, distance, effort=7):
     import jax.numpy as jnp
 
-    from jxl_tpu.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
-    from jxl_tpu.codec.layout import N_BANDS, ac_band_table, token_layout
-    from jxl_tpu.entropy.tokens import detokenize, token_nbits, zigzag_unmap
+    from jxl_jax.codec.analysis import encode_tokens_for_analysis as tokens_from_rgb
+    from jxl_jax.codec.layout import N_BANDS, ac_band_table, token_layout
+    from jxl_jax.entropy.tokens import detokenize, token_nbits, zigzag_unmap
 
     h, w = rgb.shape[:2]
     lay = token_layout(h, w)
@@ -122,7 +122,7 @@ def study_image(name, rgb, distance, effort=7):
 
 def main():
     from bench import synth_kodak
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.core.io import read_image
 
     images = {"bench": synth_kodak()}
     corpus_dir = "test_images/synth"

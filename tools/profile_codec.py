@@ -20,19 +20,18 @@ import jax.numpy as jnp
 import numpy as np
 
 from bench import synth_kodak
-from jxl_tpu.codec.config import CodecConfig
-from jxl_tpu.codec.analysis import encode_tokens_for_analysis
-from jxl_tpu.codec.decode import decode_bytes_device
-from jxl_tpu.codec.encode import (
+from jxl_jax.codec.config import CodecConfig
+from jxl_jax.codec.analysis import encode_tokens_for_analysis
+from jxl_jax.codec.decode import decode_bytes_device
+from jxl_jax.codec.encode import (
     encode_image,
     encode_images,
     pick_lanes,
 )
-from jxl_tpu.codec.layout import padded_layout, token_layout
-from jxl_tpu.entropy.grouped import pack_mantissa_grouped, rans_encode_grouped
-from jxl_tpu.entropy.rans import quantize_histograms
-from jxl_tpu.entropy.tokens import byte_capacity
-from jxl_tpu.utils.jax_setup import ready_wait
+from jxl_jax.codec.layout import padded_layout, token_layout
+from jxl_jax.entropy.grouped import pack_mantissa_grouped, rans_encode_grouped
+from jxl_jax.entropy.rans import quantize_histograms
+from jxl_jax.entropy.tokens import byte_capacity
 
 
 def timeit(label, fn, iters=5):
@@ -40,7 +39,7 @@ def timeit(label, fn, iters=5):
     t0 = time.perf_counter()
     for _ in range(iters):
         out = fn()
-    ready_wait(out)
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / iters
     print(f"{label:<44} {dt * 1e3:8.2f} ms")
     return dt
@@ -78,21 +77,13 @@ def main():
     packf = jax.jit(lambda nb, m: pack_mantissa_grouped(nb, m, lanes, cap))
     timeit("mantissa pack XLA (grouped)", lambda: packf(nbp, mantp))
 
-    from jxl_tpu.codec.encode import _encode_full, _use_pallas_enc
+    from jxl_jax.codec.encode import _encode_full
 
     kw = dict(
         height=h, width=w, effort=7, hook_a=False, hook_b=False,
         lanes=lanes, cap_bytes=cap,
     )
-    timeit(
-        "full encode device (XLA tail)",
-        lambda: _encode_full(rgb, jnp.float32(1.0), pallas_enc=False, **kw),
-    )
-    if _use_pallas_enc(lanes, lay["T"]):
-        timeit(
-            "full encode device (Mosaic kernel)",
-            lambda: _encode_full(rgb, jnp.float32(1.0), pallas_enc=True, **kw),
-        )
+    timeit("full encode device", lambda: _encode_full(rgb, jnp.float32(1.0), **kw))
 
     t_full = timeit("full encode (single, incl host)", lambda: encode_image(img, cfg), iters=3)
     jobs = [(img, cfg, "")] * 8

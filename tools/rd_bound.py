@@ -101,7 +101,7 @@ def main():
     args = ap.parse_args()
 
     if args.image:
-        from jxl_tpu.core.io import read_image
+        from jxl_jax.core.io import read_image
 
         rgb = read_image(args.image)
         name = os.path.basename(args.image)

@@ -2,11 +2,11 @@
 
 Encodes the bench image (bench.synth_kodak) plus a few corpus-style
 synthetic images over a distance sweep, decodes, and prints ONE JSON line:
-{image: [[d, bpp, psnr], ...]}. Honors every JXL_TPU_* tuning env var, so
+{image: [[d, bpp, psnr], ...]}. Honors every JXL_JAX_* tuning env var, so
 tools/rd_tune.py can A/B parameter settings via subprocesses (the quant
 tables are module constants read at import).
 
-Runs on whatever platform JAX selects (TPU when available).
+Runs on whatever platform JAX selects (the GPU when available).
 """
 
 import json
@@ -21,9 +21,9 @@ import numpy as np
 def main():
     from bench import synth_kodak
     from tools.make_test_images import synth_photo
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.decode import decode_bytes_grid_stacked, decode_bytes
-    from jxl_tpu.codec.encode import encode_image_grid
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.decode import decode_bytes_grid_stacked, decode_bytes
+    from jxl_jax.codec.encode import encode_image_grid
 
     effort = int(os.environ.get("RD_EFFORT", "7"))
     dists = [float(s) for s in os.environ.get(

@@ -1,4 +1,4 @@
-"""Corpus-wide RD position report (VERDICT r3 item 2): for EVERY committed
+"""Corpus-wide RD position report: for EVERY committed
 corpus image, the codec's bpp at its flagship (d=1) PSNR against the
 image's own Gaussian water-filling bound and same-PSNR WebP/JPEG anchors,
 plus per-family aggregates. Replaces the single-image claim in
@@ -6,8 +6,8 @@ docs/rd_position.md with a corpus-mean one.
 
 Writes docs/rd_position_r05.md.
 
-Run: python tools/rd_position_corpus.py   (TPU preferred; CPU works —
-set JXL_TPU_PLATFORM=cpu — the numbers are platform-independent)
+Run: python tools/rd_position_corpus.py   (GPU preferred; CPU works —
+set JAX_PLATFORMS=cpu — the numbers are platform-independent)
 """
 
 import io
@@ -62,10 +62,10 @@ def interp_bpp(pts, target):
 
 
 def main():
-    from jxl_tpu.codec.config import CodecConfig
-    from jxl_tpu.codec.decode import decode_bytes_grid_stacked, decode_bytes
-    from jxl_tpu.codec.encode import encode_image_grid
-    from jxl_tpu.core.io import read_image
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.decode import decode_bytes_grid_stacked, decode_bytes
+    from jxl_jax.codec.encode import encode_image_grid
+    from jxl_jax.core.io import read_image
     from tools.rd_bound import bound_bpp, coeff_vars
 
     rows = []
@@ -163,7 +163,7 @@ def main():
         "  non-Gaussian). The bound is only a meaningful ceiling on the",
         "  noise-dominated photo family.",
         "- Round 5 adds the MODULAR-LOSSY mode (codec/lossless.py,",
-        "  VERDICT r4 item 1): on candidate content the encoder also",
+        "  round 4): on candidate content the encoder also",
         "  codes a quantized-plane modular stream and keeps whichever",
         "  container measures better. The sharp-content columns below are",
         "  therefore the round-4 numbers' direct successors: round 4",

@@ -104,7 +104,7 @@ def main():
         "# RD position: where the codec sits vs its theoretical ceiling",
         "",
         "Generated by `tools/rd_position_report.py` (bound/anchors:",
-        "`tools/rd_bound.py`; curves: `tools/rd_point.py` on TPU).",
+        "`tools/rd_bound.py`; curves: `tools/rd_point.py`).",
         "",
         "## Method",
         "",
@@ -135,7 +135,7 @@ def main():
         f"{(b03/bound8-1)*100:.0f}% above the 8x8 Gaussian bound — the",
         "band where strong practical coders (incl. cjxl's VarDCT at e7,",
         "which is also an 8x8..32x32 DCT + dead-zone + clustered-ANS",
-        "design) land. The round-2 VERDICT's 1.2 bpp target equals the",
+        "design) land. The round-2 1.2 bpp target equals the",
         "8x8 bound itself (1.18) on this image: reaching it would require",
         "coding Gaussian noise with zero quantizer/model loss, so the",
         "honest reading of 'match cjxl' here is the <=1.45 bpp band, which",

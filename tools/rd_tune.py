@@ -3,13 +3,13 @@
 Runs tools/rd_point.py in a subprocess per variant (module-level quant
 constants are env-driven and read at import), then reports each variant's
 interpolated bpp at the PSNR anchors — bpp@38dB on the bench image is the
-round-3 headline (VERDICT item 1) — plus mean bpp deltas at matched PSNR
+round-3 headline — plus mean bpp deltas at matched PSNR
 over the corpus images.
 
 Usage:
   python tools/rd_tune.py base                      # baseline only
-  python tools/rd_tune.py base 'JXL_TPU_RDO_KAPPA=0.2' \
-      'JXL_TPU_FREQ_STRENGTH=1.5 JXL_TPU_CHAN_BASE=0.009,0.011,0.019'
+  python tools/rd_tune.py base 'JXL_JAX_RDO_KAPPA=0.2' \
+      'JXL_JAX_FREQ_STRENGTH=1.5 JXL_JAX_CHAN_BASE=0.009,0.011,0.019'
 """
 
 import json

@@ -57,7 +57,7 @@ def main():
         "# Round-5 corpus sweep (rust grid, BASELINE, mode decision live)",
         "",
         "Full 50-point grid (10 distances x 5 efforts) over the 12-image",
-        "corpus, run through the real harness (`python -m jxl_tpu bench",
+        "corpus, run through the real harness (`python -m jxl_jax bench",
         "--grid rust`) with the round-5 per-image VarDCT-vs-modular",
         "decision active. `comparisons.csv` is the raw 17-column output.",
         "",
