@@ -19,6 +19,26 @@ device meshes instead of Docker-container worker pools.
 
 __version__ = "0.1.0"
 
+import os as _os
+
+
+def _refuse_foreign_knobs() -> None:
+    """Every environment knob of this package is named JXL_JAX_*. Any other
+    JXL_* variable (a misspelt knob, or a knob under the package's earlier
+    name) would be ignored without a word and change what a run does, so it
+    is an error."""
+    bad = sorted(
+        k for k in _os.environ if k.startswith("JXL_") and not k.startswith("JXL_JAX_")
+    )
+    if bad:
+        raise RuntimeError(
+            f"unknown environment variable(s) {', '.join(bad)}: the knobs of "
+            "jxl_jax are named JXL_JAX_* (see README.md); rename or unset them"
+        )
+
+
+_refuse_foreign_knobs()
+
 from jxl_jax.utils.jax_setup import configure_jax as _configure_jax
 
 _configure_jax()

@@ -14,7 +14,7 @@ would fail for want of memory. A client whose request may not be
 forwarded (codec knobs set, or JXL_JAX_NO_SERVER=1) therefore stops with
 an error while a server answers, instead of opening the device itself.
 
-  python -m jxl_jax serve [--socket /tmp/jxl_jax.sock] &
+  python -m jxl_jax serve [--socket PATH] &   # default $TMPDIR/jxl_jax.sock
   python -m jxl_jax encode in.png out.jxt --distance 1.0   # forwarded
   JXL_JAX_NO_SERVER=1 python -m jxl_jax encode ...          # local, no server
 
@@ -30,8 +30,11 @@ import json
 import os
 import socket
 import sys
+import tempfile
 
-DEFAULT_SOCKET = os.environ.get("JXL_JAX_SOCKET", "/tmp/jxl_jax.sock")
+DEFAULT_SOCKET = os.environ.get(
+    "JXL_JAX_SOCKET", os.path.join(tempfile.gettempdir(), "jxl_jax.sock")
+)
 
 # JXL_JAX_* variables that do not steer the codec: a request made with
 # only these set may be forwarded

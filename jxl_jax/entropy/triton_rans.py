@@ -17,6 +17,13 @@ the mantissa-byte pointer in registers. Per step:
 - mantissa: up to MAX_NBYTES bytes per token, gathered the same way at
   `bptr + byte_rank + j`.
 
+Every gather stays inside its group's segment whatever the stream holds:
+the pointer is clamped to [0, cap - window] and the in-window offset to
+the window, exactly as the twin's `dynamic_slice` windows clamp. A
+corrupt or forged stream (say, states that renormalize on every step)
+then decodes to the twin's garbage values instead of reading past the
+buffer.
+
 The XLA `lax.scan` twin (entropy/grouped.py:decode_grouped) is the
 bit-exact reference and the CPU path; tests run this kernel in interpret
 mode against it. Streams are read straight from device memory, so the
@@ -32,7 +39,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu_triton
 
-from jxl_jax.entropy.grouped import GROUP, MAX_NBYTES
+from jxl_jax.entropy.grouped import GROUP, MANT_SLACK, MAX_NBYTES, WORD_SLACK
 from jxl_jax.entropy.rans import RANS_L, RANS_M, RANS_PRECISION
 
 ROUTES = ("triton", "xla", "interpret")
@@ -82,15 +89,16 @@ def _kernel(
         ).astype(jnp.uint32)
         need = (x_dec < RANS_L).astype(jnp.int32)
         rank = jnp.cumsum(need) - need
-        w = words_ref[wbase + wp + rank]
+        w = words_ref[wbase + jnp.clip(wp, 0, capw - WORD_SLACK) + rank]
         x_new = jnp.where(need == 1, (x_dec << 16) | w, x_dec)
 
         nbits = jnp.where(sym >= 32, sym - 27, 0)
         nbyt = (nbits + 7) >> 3
         brank = jnp.cumsum(nbyt) - nbyt
+        mwin = mbase + jnp.clip(mp, 0, capm - MANT_SLACK)
         mval = jnp.zeros((GROUP,), jnp.uint32)
         for j in range(MAX_NBYTES):
-            byte = mant_ref[mbase + mp + brank + j]
+            byte = mant_ref[mwin + jnp.minimum(brank + j, MANT_SLACK - 1)]
             mval = mval | jnp.where(j < nbyt, byte << jnp.uint32(8 * j), 0).astype(
                 jnp.uint32
             )
@@ -117,8 +125,8 @@ def decode_grouped_triton(
     """Kernel twin of grouped.decode_grouped over B same-geometry streams.
 
     words_g: [B*G, capw] u32, mant_g: [B*G, capm] u32 (per-group segments
-    with >= WORD_SLACK / MANT_SLACK elements of tail slack, so no gather
-    leaves the array); states: [B*G, 128] u32 (an image's lanes are its G
+    with >= WORD_SLACK / MANT_SLACK elements of tail slack; gathers are
+    clamped to the segment as in the twin); states: [B*G, 128] u32 (an image's lanes are its G
     consecutive rows); rows: [T, B, 128] i32 from grouped.kernel_rows, one
     row stream per image (grid points differ in their tables); ptr_init:
     optional [2, B*G] i32 (word, mantissa) stream pointers carried from a
@@ -131,6 +139,7 @@ def decode_grouped_triton(
     capm = mant_g.shape[1]
     B = rows.shape[1]
     assert Gt == B * G and states.shape == (Gt, GROUP), (Gt, B, G, states.shape)
+    assert capw >= WORD_SLACK and capm >= MANT_SLACK, (capw, capm)
     if ptr_init is None:
         ptr_init = jnp.zeros((2, Gt), jnp.int32)
     out, st_f, ptr_f = pl.pallas_call(

@@ -76,6 +76,76 @@ def test_png_writer_readable_by_pil(tmp_path):
     np.testing.assert_array_equal(np.asarray(Image.open(p).convert("RGB")), rgb)
 
 
+def _png_with_filters(path, px: np.ndarray, ftypes) -> None:
+    """Write an 8-bit PNG whose row y is filtered with ftypes[y], by a
+    plain per-byte implementation of RFC 2083 §6 (independent of the
+    reader under test). px: [h, w, bpp] u8 (bpp 1, 3 or 4)."""
+    import struct
+    import zlib
+
+    h, w, bpp = px.shape
+    x = px.reshape(h, w * bpp).astype(int)
+    rows = []
+    for y in range(h):
+        f = ftypes[y % len(ftypes)]
+        out = [f]
+        for i in range(w * bpp):
+            a = x[y, i - bpp] if i >= bpp else 0
+            b = x[y - 1, i] if y else 0
+            c = x[y - 1, i - bpp] if y and i >= bpp else 0
+            p = a + b - c
+            paeth = a if abs(p - a) <= abs(p - b) and abs(p - a) <= abs(p - c) else (
+                b if abs(p - b) <= abs(p - c) else c
+            )
+            pred = [0, a, b, (a + b) // 2, paeth][f]
+            out.append((x[y, i] - pred) & 255)
+        rows.append(bytes(out))
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ctype = {1: 0, 3: 2, 4: 6}[bpp]
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        fh.write(chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("bpp", [1, 3, 4])
+@pytest.mark.parametrize(
+    "ftypes", [(1,), (2,), (3,), (4,), (0, 1, 2), (4, 3, 0, 2, 1)],
+    ids=["sub", "up", "average", "paeth", "none-sub-up", "mixed"],
+)
+def test_png_reader_undoes_each_filter(tmp_path, ftypes, bpp):
+    from jxl_jax.core.io import read_png
+
+    rng = np.random.default_rng(len(ftypes) * 10 + bpp)
+    yy, xx = np.mgrid[0:23, 0:31]
+    px = (np.stack([xx * 7 + yy * 3] * bpp, -1) + rng.integers(0, 40, (23, 31, bpp))) % 256
+    px = px.astype(np.uint8)
+    p = str(tmp_path / "f.png")
+    _png_with_filters(p, px, ftypes)
+    want = np.repeat(px, 3, axis=2) if bpp == 1 else px[..., :3]
+    np.testing.assert_array_equal(read_png(p), want)
+
+
+def test_png_reader_rejects_unknown_filter_type(tmp_path):
+    import struct
+    import zlib
+
+    from jxl_jax.core.io import read_png
+
+    p = tmp_path / "f5.png"
+    _png_with_filters(str(p), np.zeros((2, 3, 3), np.uint8), (0,))
+    data = p.read_bytes()
+    idat = zlib.compress(b"\x00" * 10 + b"\x05" + b"\x00" * 9)  # row 1: filter 5
+    i = data.index(b"IDAT") - 4
+    n = struct.unpack(">I", data[i : i + 4])[0]
+    body = struct.pack(">I", len(idat)) + b"IDAT" + idat + struct.pack(">I", zlib.crc32(b"IDAT" + idat))
+    p.write_bytes(data[:i] + body + data[i + 12 + n :])
+    with pytest.raises(ValueError, match="filter type 5"):
+        read_png(str(p))
+
+
 def test_png_reader_rejects_16_bit(tmp_path):
     import struct
     import zlib

@@ -148,3 +148,41 @@ def test_cli_refuses_local_run_beside_live_server(server, monkeypatch, tmp_path,
     rc = main(["encode", str(tmp_path / "missing.png"), str(tmp_path / "o.jxt")])
     assert rc == 2
     assert "holds the device" in capsys.readouterr().err
+
+
+def test_default_socket_is_in_the_temp_dir():
+    import tempfile
+
+    from jxl_jax.cli import server as srv
+
+    if "JXL_JAX_SOCKET" not in os.environ:
+        assert srv.DEFAULT_SOCKET == os.path.join(tempfile.gettempdir(), "jxl_jax.sock")
+
+
+@pytest.mark.parametrize("name", ["JXL_OLD_MODULAR", "JXL_NO_SERVER", "JXL_JAXX"])
+def test_foreign_jxl_knob_is_refused(monkeypatch, name):
+    """A JXL_* variable outside the JXL_JAX_* family would be ignored
+    silently, so importing the package refuses it."""
+    import jxl_jax
+
+    monkeypatch.setenv(name, "1")
+    with pytest.raises(RuntimeError, match=name):
+        jxl_jax._refuse_foreign_knobs()
+
+
+def test_own_knobs_are_accepted(monkeypatch):
+    import jxl_jax
+
+    monkeypatch.setenv("JXL_JAX_MODULAR", "0")
+    jxl_jax._refuse_foreign_knobs()
+
+
+def test_foreign_knob_stops_the_cli_before_any_work(tmp_path):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JXL_OLD_NO_SERVER="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "jxl_jax", "decode", str(tmp_path / "x.jxt"), str(tmp_path / "y.png")],
+        env=env, capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert r.returncode != 0
+    assert "JXL_OLD_NO_SERVER" in r.stderr and "JXL_JAX_" in r.stderr

@@ -107,6 +107,51 @@ def test_kernel_interpret_matches_reference(lanes, B):
     _check_against_reference(lanes, B, interpret=True)
 
 
+# Forged streams: the kernel's gathers must stay in each group's segment
+# and agree with the twin's clamped dynamic_slice windows, whatever the
+# states and pointers say.
+FORGED = {  # states: every lane's; ptr(capw, capm): every other group's
+    "renorm_every_step": dict(states=1),  # x < L: a word per lane per step
+    "zero_states": dict(states=0),
+    "pointers_past_end": dict(ptr=lambda cw, cm: (1 << 20, 1 << 20)),
+    "negative_pointers": dict(ptr=lambda cw, cm: (-700, -700)),
+    "last_element_and_renorm": dict(states=1, ptr=lambda cw, cm: (cw - 1, cm - 1)),
+}
+
+
+def _check_forged(case: str, lanes: int, interpret: bool):
+    G = lanes // GROUP
+    B = 2
+    wg, mg, states, rows, _vals = _streams(lanes, B)
+    forge = FORGED[case]
+    if "states" in forge:
+        states = np.full_like(states, forge["states"])
+    ptr = np.zeros((2, B * G), np.int32)
+    if "ptr" in forge:
+        ptr[0, ::2], ptr[1, ::2] = forge["ptr"](wg.shape[1], mg.shape[1])
+    v, x, p = jax.device_get(
+        decode_grouped_triton(
+            wg, mg, states, rows, T=T_SMALL, lanes=lanes, ptr_init=jnp.asarray(ptr),
+            interpret=interpret,
+        )
+    )
+    for b in range(B):
+        g = slice(b * G, (b + 1) * G)
+        rv, rx, rg, rb = decode_grouped(
+            wg[g], mg[g], states[g].reshape(-1), rows[:, b], T=T_SMALL, lanes=lanes,
+            gptr0=jnp.asarray(ptr[0, g]), bptr0=jnp.asarray(ptr[1, g]), return_carry=True,
+        )
+        np.testing.assert_array_equal(np.asarray(rv), v[b])
+        np.testing.assert_array_equal(np.asarray(rx).reshape(G, GROUP), x[g])
+        np.testing.assert_array_equal(np.asarray(rg), p[0, g])
+        np.testing.assert_array_equal(np.asarray(rb), p[1, g])
+
+
+@pytest.mark.parametrize("case", sorted(FORGED))
+def test_kernel_interpret_forged_streams_match_reference(case):
+    _check_forged(case, 256, interpret=True)
+
+
 @pytest.fixture
 def gpu():
     if jax.devices()[0].platform != "gpu":
@@ -118,6 +163,75 @@ def gpu():
 @pytest.mark.parametrize("lanes", [128, 256, 512])
 def test_kernel_compiled_matches_reference(gpu, lanes, B):
     _check_against_reference(lanes, B, interpret=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [256, 512])
+@pytest.mark.parametrize("case", sorted(FORGED))
+def test_kernel_compiled_forged_streams_match_reference(gpu, case, lanes):
+    _check_forged(case, lanes, interpret=False)
+
+
+def _fuzzed_containers(n_flips: int):
+    """test_fuzz's corruptions of one small lossy container: random byte
+    flips, and the rANS states forged to 1 (a renormalization on every
+    step, so the word pointers run far past the stream)."""
+    from jxl_jax.codec.config import CodecConfig
+    from jxl_jax.codec.container import read_container, write_container
+    from jxl_jax.codec.encode import encode_image
+
+    # built here, not imported: on the card's machine another installed
+    # `tests` package can shadow this directory's conftest
+    r = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:48, 0:64]
+    img = np.stack([xx * 4, yy * 5, (xx + yy) * 2], -1) + r.integers(0, 24, (48, 64, 3))
+    data = encode_image(np.clip(img, 0, 255).astype(np.uint8), CodecConfig(distance=2.0, effort=3))
+    s = read_container(data)
+    s.states = np.ones_like(s.states)
+    out = {"forged_states": write_container(s)}
+    r = np.random.default_rng(12)
+    for i in range(n_flips):
+        mut = bytearray(data)
+        mut[int(r.integers(0, len(data)))] ^= 1 << int(r.integers(0, 8))
+        out[f"flip{i}"] = bytes(mut)
+    return out
+
+
+def _check_fuzzed(route: str, n_flips: int):
+    """Each corrupt container either is rejected cleanly (ValueError) or
+    has its rANS stage decoded by `route` exactly as by the twin."""
+    from jxl_jax.codec.decode import decode_rans_row
+
+    decoded = 0
+    for name, data in _fuzzed_containers(n_flips).items():
+        try:
+            ref = decode_rans_row([data], "xla")
+        except ValueError:
+            continue
+        got = decode_rans_row([data], route)
+        for x, y in zip(jax.tree_util.tree_leaves(ref), jax.tree_util.tree_leaves(got)):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        decoded += 1
+    assert decoded > 0
+
+
+def test_fuzzed_containers_interpret_match_xla():
+    _check_fuzzed("interpret", n_flips=2)
+
+
+@pytest.mark.gpu
+def test_fuzzed_containers_compiled_match_xla(gpu):
+    """test_fuzz's byte-flip and forged-state cases on the compiled kernel:
+    the twin's values, and decode_bytes still returns an image."""
+    from jxl_jax.codec.decode import decode_bytes
+
+    _check_fuzzed("triton", n_flips=40)
+    for data in _fuzzed_containers(40).values():
+        try:
+            out = decode_bytes(data)
+        except ValueError:
+            continue
+        assert out.dtype == np.uint8 and out.shape[2] == 3
 
 
 @pytest.mark.gpu
